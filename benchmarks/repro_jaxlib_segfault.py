@@ -1,5 +1,5 @@
 """Minimal repro attempt for the jaxlib CPU-compiler segfault that
-``tests/conftest.py`` works around (VERDICT r02 task 7).
+``tests/conftest.py`` works around.
 
 Symptom: with the full test suite in ONE process (~400 compiled programs,
 no cache clearing), jaxlib 0.9.0's CPU compiler segfaults inside
@@ -12,7 +12,7 @@ compilations) without clearing caches. Run:
     python benchmarks/repro_jaxlib_segfault.py 500
 
 Exit code 0 = no segfault at this count; a segfault kills the process with
-SIGSEGV (rc -11 / 139). Findings are recorded in NOTES.md.
+SIGSEGV (rc -11 / 139).
 """
 
 import sys

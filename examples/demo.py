@@ -1,7 +1,7 @@
 """End-to-end demo: Pathfinder → PSIS → NUTS warm start on a real posterior.
 
-Run on any backend (TPU by default here; add
-``jax.config.update("jax_platforms", "cpu")`` for CPU):
+Run on any backend (the GPU when JAX finds one; set ``JAX_PLATFORMS=cpu``
+for the CPU):
 
     python examples/demo.py
 """
@@ -62,4 +62,16 @@ def main():
 
 
 if __name__ == "__main__":
+    import os
+
+    # JAX reads JAX_COMPILATION_CACHE_DIR itself; otherwise keep the cache
+    # in the checkout, where bench.py and chip_smoke.py keep theirs
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update(
+            "jax_compilation_cache_dir",
+            os.path.join(
+                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                ".jax_cache",
+            ),
+        )
     main()

@@ -3,14 +3,23 @@ through the whole framework — BayesModel (non-centered parameterization) →
 multi-path Pathfinder → mixture-denominator importance resampling → NUTS
 warm-started from the fit, with R-hat/ESS diagnostics.
 
-Run: python examples/eight_schools.py   (TPU or CPU; ~1 min after compile)
+Run: python examples/eight_schools.py   (GPU or CPU)
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+# JAX reads JAX_COMPILATION_CACHE_DIR itself; otherwise keep the cache in
+# the checkout, where bench.py and chip_smoke.py keep theirs
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     ".jax_cache"),
+    )
 
 from pathfinder_tpu import BayesModel, multipathfinder
 from pathfinder_tpu.models.bayes import HalfCauchy, Normal

@@ -1,10 +1,10 @@
-"""pathfinder_tpu — TPU-native Pathfinder (parallel quasi-Newton VI) in JAX.
+"""Pathfinder (parallel quasi-Newton VI) in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation with the capability surface of
-the reference Julia package (mlcolab/Pathfinder.jl), redesigned TPU-first:
-fixed-shape ``lax.scan``/``while_loop`` optimization, masked low-rank
-covariance factors, ``vmap``/``shard_map`` path parallelism, and fused
-sampling kernels.
+A from-scratch JAX/XLA implementation with the capability surface of the
+reference Julia package (mlcolab/Pathfinder.jl), redesigned for batched
+accelerator execution: fixed-shape ``lax.scan``/``while_loop``
+optimization, masked low-rank covariance factors, and
+``vmap``/``shard_map`` path parallelism.
 """
 
 from pathfinder_tpu.models.bayes import BayesModel

@@ -561,12 +561,11 @@ def nuts_chains(
     whole sampler with no cross-device collectives). ``C`` must be
     divisible by the first mesh axis's size (the chain axis shards over
     that axis only). Per-chain keys are split from ``key``
-    before placement, so every random decision replays identically; the
+    before placement, so every chain draws the same random numbers; the
     floating-point trajectories themselves may differ from the unsharded
-    run at the last ulp (per-device batch width changes XLA's
-    vectorization/FMA grouping across the chain axis — measured ~5e-15
-    in f64), which is the same reassociation-level caveat as the
-    multipath cg dryrun check.
+    run (per-device batch width changes XLA's code across the chain axis
+    — measured ~5e-15 in f64 on the CPU; on a GPU the chains diverged
+    into different, equally valid runs).
 
     ``value_and_grad`` is a static (identity-keyed) jit argument: pass the
     *same callable object* across calls to reuse the compiled sampler —

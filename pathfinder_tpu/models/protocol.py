@@ -5,7 +5,7 @@ The JAX analog of the reference's ``LogDensityProblems`` input interface
 dimension, a log density, and optionally its gradient; when no gradient is
 provided, ``jax.value_and_grad`` plays the role of the reference's default
 ForwardDiff AD backend (``src/Pathfinder.jl:38`` — reverse mode is the right
-default on TPU, as the reference's own docs recommend for high dimensions,
+default here, as the reference's own docs recommend for high dimensions,
 ``docs/src/examples/quickstart.md:240-241``).
 """
 

@@ -15,7 +15,7 @@ Algorithm: inverse-Hessian BFGS (Nocedal & Wright 2006, Alg. 6.1 / eq.
 eq. 6.20), curvature-guarded updates (``sᵀy > ε‖y‖²`` — the same guard and
 counter as the L-BFGS driver), steepest-descent restart with an identity
 reset when rounding costs H positive-definiteness. The ``H·g`` direction
-and the rank-2 update are dense (d×d) MXU matmuls — O(d²) memory and
+and the rank-2 update are dense (d×d) matmuls — O(d²) memory and
 per-iteration FLOPs, so prefer ``lbfgs`` at large ``d``; this optimizer
 exists for trajectory diversity (its steps differ genuinely from L-BFGS's
 limited-memory ones) and reference parity.

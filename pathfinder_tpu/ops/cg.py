@@ -1,11 +1,11 @@
 """Nonlinear conjugate gradient with trajectory trace — the second real
-optimizer behind ``PathfinderConfig.optimizer`` (VERDICT r02 task 5).
+optimizer behind ``PathfinderConfig.optimizer``.
 
 The reference accepts any Optimization.jl optimizer with callbacks and its
 tests exercise BFGS/ConjugateGradient/NLopt (``src/singlepath.jl:120-123``,
 ``test/optimize.jl:104-135``); the fit stage then reconstructs L-BFGS
 inverse-Hessians *from the trajectory*, whatever produced it
-(``src/inverse_hessian.jl:25-66``). This module gives the TPU build the
+(``src/inverse_hessian.jl:25-66``). This module gives this package the
 same property: :func:`minimize_cg_trace` emits the identical
 :class:`~pathfinder_tpu.ops.lbfgs.OptimizationTrace` contract as
 ``minimize_lbfgs_trace``, so the Woodbury fits / ELBO / draw stages run

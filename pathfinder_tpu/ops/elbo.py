@@ -3,7 +3,7 @@
 Parity target: ``src/elbo.jl``. The reference evaluates the L candidate
 distributions in parallel task chunks with per-candidate seeds
 (``src/elbo.jl:2-5``); here every candidate is evaluated by one batched
-``vmap`` with a per-candidate ``fold_in`` key — the TPU analog that keeps the
+``vmap`` with a per-candidate ``fold_in`` key, which keeps the
 reference's determinism contract (results independent of how work is
 distributed) by construction.
 """

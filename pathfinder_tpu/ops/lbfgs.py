@@ -1,4 +1,4 @@
-"""L-BFGS with trajectory trace + inverse-Hessian reconstruction, TPU-native.
+"""L-BFGS with trajectory trace + inverse-Hessian reconstruction.
 
 Replaces three reference components with fixed-shape JAX equivalents:
 
@@ -35,7 +35,7 @@ from pathfinder_tpu.ops.linesearch import (
     resolve_c1,
     resolve_line_search,
 )
-from pathfinder_tpu.ops.woodbury import WoodburyPDMat
+from pathfinder_tpu.ops.woodbury import WoodburyPDMat, matmul
 
 __all__ = [
     "gilbert_init",
@@ -126,9 +126,9 @@ def _compact_pieces(S_masked, Y_masked, alpha, mask):
     dtype = alpha.dtype
     eyeJ = jnp.eye(J, dtype=dtype)
     mm = mask[:, None] * mask[None, :]
-    R = jnp.triu(S_masked @ Y_masked.T) * mm + eyeJ * (1.0 - mask)
+    R = jnp.triu(matmul(S_masked, Y_masked.T)) * mm + eyeJ * (1.0 - mask)
     E = jnp.diagonal(R) * mask
-    YaY = Y_masked @ (alpha[None, :] * Y_masked).T
+    YaY = matmul(Y_masked, (alpha[None, :] * Y_masked).T)
     return R, E, YaY, eyeJ
 
 
@@ -138,10 +138,9 @@ def _two_loop_direction(g, alpha, S, Y, pos, hlen):
     the classic two-loop recursion, but expressed as one J×J matmul plus two
     J×J triangular solves instead of 2J sequential gather+dot pairs.
 
-    The sequential two-loop costs ~60 tiny kernels per call; on TPU the
-    optimizer loop is kernel-count latency-bound (measured ~d-independent
-    1.6 ms/iteration), so the batched compact form is the faster shape even
-    though it does O(J²·d) instead of O(J·d) flops.
+    The sequential two-loop is 2J dependent gather+dot steps; the compact
+    form is a few batched matmuls and solves, at O(J²·d) instead of O(J·d)
+    flops.
     """
     from jax.scipy.linalg import solve_triangular
 
@@ -159,14 +158,14 @@ def _two_loop_direction(g, alpha, S, Y, pos, hlen):
 
     R, E, YaY, _ = _compact_pieces(S_ord, Y_ord, alpha, mask)
 
-    u1 = Y_ord @ (alpha * g)  # B₁ᵀ g
-    u2 = S_ord @ g  # B₂ᵀ g
+    u1 = matmul(Y_ord, alpha * g)  # B₁ᵀ g
+    u2 = matmul(S_ord, g)  # B₂ᵀ g
     w = solve_triangular(R, u2, lower=False)  # R⁻¹ u2
     d1 = -w
-    inner = -u1 + E * w + YaY @ w
+    inner = -u1 + E * w + matmul(YaY, w)
     d2 = solve_triangular(R, inner, lower=False, trans=1)  # R⁻ᵀ(...)
 
-    Hg = alpha * g + alpha * (Y_ord.T @ d1) + S_ord.T @ d2
+    Hg = alpha * g + alpha * matmul(Y_ord.T, d1) + matmul(S_ord.T, d2)
     return -Hg
 
 
@@ -426,7 +425,7 @@ def lbfgs_inverse_hessian(alpha, S, Y, row_mask) -> WoodburyPDMat:
 
     nRinv = solve_triangular(R, -eyeJ, lower=False)  # −R⁻¹
     inner = jnp.diag(E) + YaY
-    D22 = nRinv.T @ inner @ nRinv  # R⁻ᵀ(E + YαYᵀ)R⁻¹
+    D22 = matmul(matmul(nRinv.T, inner), nRinv)  # R⁻ᵀ(E + YαYᵀ)R⁻¹
     Dtop = jnp.concatenate([jnp.zeros((J, J), dtype), nRinv], axis=1)
     Dbot = jnp.concatenate([nRinv.T, D22], axis=1)
     D = jnp.concatenate([Dtop, Dbot], axis=0)
@@ -551,8 +550,8 @@ def lbfgs_inverse_hessians(
 
     Returns a *batched* :class:`WoodburyPDMat` (leading axis = trajectory
     point 0..L), the per-point validity mask, and the number of rejected
-    updates. All L+1 factorizations are built by one ``vmap`` — on TPU the
-    m×m cores batch onto the MXU instead of running sequentially.
+    updates. All L+1 factorizations are built by one ``vmap``, so the m×m
+    cores are batched instead of running sequentially.
     """
     aux = lbfgs_history_aux(trace, epsilon_curvature)
     L = trace.xs.shape[0] - 1

@@ -53,9 +53,7 @@ class MvNormal:
 
         Parity: ``Distributions.logpdf`` routed through ``PDMats.invquad``
         (``src/woodbury.jl:369-376``). XLA fuses the whiten + square-sum
-        chain into the surrounding computation; hand-written Pallas kernels
-        for this op were benchmarked (2× slower at bench sizes, 4–8% slower
-        even at d=4096/m=64/N=16k) and removed — see NOTES.md.
+        chain into the surrounding computation.
         """
         dx = x - (self.mean if x.ndim == 1 else self.mean[:, None])
         maha = self.cov.invquad(dx)

@@ -3,8 +3,8 @@ pluggable-optimizer axis.
 
 The reference's input protocol carries capability order 0/1/2 and its
 optim-function builder wires user Hessians through for optimizers that
-want them (``src/optimize.jl:1-33``); this module is the consumer on the
-TPU side: ``optimizer="newton"`` uses ``LogDensity.hess`` (or derives it
+want them (``src/optimize.jl:1-33``); this module is the consumer here:
+``optimizer="newton"`` uses ``LogDensity.hess`` (or derives it
 with ``jax.hessian``) for a modified-Newton step. Emits the identical
 :class:`~pathfinder_tpu.ops.lbfgs.OptimizationTrace` contract as the
 other drivers — the Woodbury-fit / ELBO / draw stages consume only the

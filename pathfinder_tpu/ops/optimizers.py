@@ -3,7 +3,7 @@
 Parity: the reference accepts ANY Optimization.jl-compatible optimizer
 with callback support (``src/singlepath.jl:120-123``) and its test suite
 plugs in a foreign NLopt optimizer (``test/optimize.jl:104-135``). The
-TPU analog is the shared **trace contract**: a trajectory optimizer is
+JAX analog is the shared **trace contract**: a trajectory optimizer is
 any callable
 
     minimize(value_and_grad, x0, *, maxiters, history_length, gtol,

@@ -1,7 +1,7 @@
 """Parameter-dimension sharding: scale Pathfinder to d too large for one chip.
 
 SURVEY §5 identifies the reference's scaling axes: it scales in ``d`` by
-keeping covariances in diag + low-rank form (never O(d²)); the TPU analog of
+keeping covariances in diag + low-rank form (never O(d²)); the mesh analog of
 "sequence parallelism" is sharding the ``d`` axis of θ, gradients, ``B``,
 and draws across a mesh. Every Woodbury operation is embarrassingly
 row-parallel except m-length reductions (``Xᵀx``, norms), which become

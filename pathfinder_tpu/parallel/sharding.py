@@ -2,22 +2,26 @@
 
 The reference's "parallel" axis is shared-memory task chunking over paths
 (``_chunk_tmap``, ``src/multipath.jl:190-204``; inventory in SURVEY §2c).
-The TPU-native equivalent implemented here:
+The equivalent implemented here:
 
-* **within a chip**: ``vmap`` over the paths axis — all K optimizations,
+* **within a device**: ``vmap`` over the paths axis — all K optimizations,
   factorizations, and ELBO evaluations advance in lockstep as one batched
-  program (MXU-friendly);
-* **across chips**: ``shard_map`` of the vmapped core over a 1-D device mesh
-  with the paths axis sharded — single-path Pathfinder needs **zero
-  cross-device communication**, so each chip runs its shard of paths on pure
-  ICI-free compute; the only collectives in multipath are the implicit
-  all-gathers of the tiny per-path fits and K·N log-ratio scalars consumed by
+  program;
+* **across devices**: ``shard_map`` of the vmapped core over a 1-D device
+  mesh with the paths axis sharded — single-path Pathfinder needs **zero
+  cross-device communication**, so each device runs its shard of paths
+  alone; the only collectives in multipath are the implicit all-gathers of
+  the tiny per-path fits and K·N log-ratio scalars consumed by
   PSIS/resampling, which XLA inserts at the jit boundary.
 
 Determinism contract (reference ``src/multipath.jl:162``, tested at
-``test/multipath.jl:107-140``): results are bit-identical for any mesh
-shape, because every path's randomness comes from ``fold_in(key, path_id)``
-— the counter-based analog of the reference's seeds-drawn-before-spawning.
+``test/multipath.jl:107-140``): every path's randomness comes from
+``fold_in(key, path_id)`` — the counter-based analog of the reference's
+seeds-drawn-before-spawning — so the mesh shape changes no sampled
+randomness. On the CPU backend results are bit-identical for any mesh
+shape. On a GPU the per-device batch width selects other compiled code
+whose rounding differs, and a trajectory can carry that into a different,
+equally valid run (see the README's determinism contract).
 """
 
 from __future__ import annotations
@@ -72,49 +76,51 @@ def paths_dim_mesh(n_paths_axis: int, devices=None) -> Mesh:
     )
 
 
-# XLA batch-size cliff, measured on v5e at the d=1000 headline pipeline
-# (benchmarks/PATHS_CLIFF_r05.jsonl + PATHS_CLIFF2_r05.jsonl): for large
-# path counts that are NOT multiples of 256, XLA compiles a ~1.5× slower
-# per-path core (K=3000/4000/5000 → ~1000 paths/s vs 1400–1575 at every
-# multiple of 256 from 2048 through 6144 — same program modulo K).
-# Padding to the next multiple of 256 wastes ≤ 255 lanes (≤ 12% at the
-# 2048 threshold, ≤ 5% at K ≥ 5000) and was strictly faster in absolute
-# wall time at every misaligned K measured (e.g. 4000 → 4096: 4.02 s →
-# 2.65 s). Below the threshold the cliff does not exist (K=1000 measured
-# fast unaligned), so small runs are never padded.
+# Large path counts are padded to a multiple of PATHS_ALIGN lanes, so
+# nearby K share one batch width. Padding lanes run with their own keys
+# and are discarded, so the choice changes no result; the values are not
+# yet measured on the current GPU target.
 PATHS_ALIGN = 256
 PATHS_ALIGN_MIN_K = 2048
 
-# Single-program size ceiling, measured on v5e at the d=1000 headline
-# pipeline (benchmarks/PATHS_SCALING_r04.jsonl + PATHS_CLIFF2_r05.jsonl):
-# K=6144 lanes compile and run in one program; K=7168 fails in the
-# backend's compile helper while HBM sits at ~25% — the limit is the
-# compiler, not memory. Past the ceiling, ``multipathfinder``
-# transparently runs sequential launches of one fixed-shape
-# ``DEFAULT_LAUNCH_CAP``-lane program instead (measured 1491–1541
-# paths/s at K=8192/16384, benchmarks/PATHS_CHUNK_r05.jsonl +
-# PATHS_SLIM_r05.jsonl — no throughput cliff at the chunk seams). An
-# explicit ``max_paths_per_launch`` always wins; pass a cap ≥ nruns to
-# force a single program.
+# Past SINGLE_PROGRAM_MAX_K lanes, ``multipathfinder`` transparently runs
+# sequential launches of one fixed-shape ``DEFAULT_LAUNCH_CAP``-lane
+# program instead of one program. An explicit ``max_paths_per_launch``
+# always wins; pass a cap ≥ nruns to force a single program. Chunking
+# changes no result (see :func:`chunk_launches`); the values are not yet
+# measured on the current GPU target.
 SINGLE_PROGRAM_MAX_K = 6144
 DEFAULT_LAUNCH_CAP = 4096
 
 # Host-offload auto threshold for chunked launches: when the accumulated
-# launch outputs (n_chunks × the first chunk's concrete output bytes)
-# would exceed this, stream each chunk's output to host RAM instead of
-# letting chunks pile up in HBM. Measured motivation (v5e 16 GB,
-# d=1000 slim states = 130 KB/path): K=16384 on-device works, K=32768
-# RESOURCE_EXHAUSTEDs — the 4.3 GB of accumulated slim states plus the
-# device-side concatenation copy plus one in-flight launch's full
-# buffers crosses HBM; offloaded, host RAM is the ceiling
-# (benchmarks/PATHS_SLIM_r05.jsonl / PATHS_OFFLOAD_r05.jsonl).
-OFFLOAD_AUTO_BYTES = 2 << 30
+# launch outputs (n_chunks × the first chunk's concrete output bytes, per
+# device) would exceed OFFLOAD_AUTO_FRACTION of the device's memory limit
+# (``memory_stats()["bytes_limit"]``), stream each chunk's output to host
+# RAM instead of letting chunks pile up on the device. An eighth leaves
+# room for what is live beside the accumulated outputs: one in-flight
+# launch's full buffers (trajectory traces, ELBO intermediates) and the
+# device-side concatenation copy, which doubles the accumulated bytes.
+# A backend that reports no limit (the CPU) never offloads automatically.
+# OFFLOAD_AUTO_BYTES, when set, replaces the derived threshold.
+OFFLOAD_AUTO_FRACTION = 1 / 8
+OFFLOAD_AUTO_BYTES: Optional[int] = None
+
+
+def offload_auto_bytes(device) -> Optional[int]:
+    """Per-device byte threshold of ``chunk_launches(offload=None)``, or
+    ``None`` when ``device`` reports no memory limit."""
+    if OFFLOAD_AUTO_BYTES is not None:
+        return OFFLOAD_AUTO_BYTES
+    limit = (device.memory_stats() or {}).get("bytes_limit")
+    if not limit:
+        return None
+    return int(limit * OFFLOAD_AUTO_FRACTION)
 
 
 def pad_paths(n: int, mesh: Optional[Mesh], align: bool = True) -> int:
     """Smallest K' ≥ n divisible by the mesh's ``paths`` axis (1 when
     unsharded) — and, for ``n ≥ PATHS_ALIGN_MIN_K``, by ``PATHS_ALIGN``
-    (the measured XLA batch-size cliff; see the constants above).
+    (see the constants above).
     Padding lanes run with their own ``fold_in(key, path_id)`` keys and
     are discarded, so alignment changes no result."""
     size = 1
@@ -137,7 +143,7 @@ def chunk_launches(
     sequential launches of ONE fixed-shape ``cap``-lane program.
 
     ``offload`` streams each launch's output to host RAM as it
-    completes, so chunk outputs never accumulate in HBM — host memory
+    completes, so chunk outputs never accumulate on the device — host memory
     becomes the paths-axis ceiling instead of the device. The returned
     pytree then has numpy leaves (bit-identical values: a device→host
     round trip preserves bits); typed PRNG-key leaves stay on device
@@ -145,29 +151,27 @@ def chunk_launches(
     Chunks are written into preallocated K-row host buffers (peak host
     usage = the pool itself, no concat doubling), and the next chunk is
     dispatched *before* the previous chunk's transfer blocks, so device
-    compute and d2h transfer overlap (≤ 2 chunk outputs live in HBM).
-    ``offload=None`` decides automatically after dispatching the first
-    chunk (from its aval sizes, no sync): offload iff the accumulated
-    *per-device* bytes ``n_chunks × chunk_bytes / mesh_paths_size``
-    exceed ``OFFLOAD_AUTO_BYTES`` — HBM is a per-device resource, so a
-    mesh that shards the paths axis raises the on-device ceiling
-    proportionally. ``offload=True`` always offloads, including a
-    single un-chunked launch (frees HBM for whatever runs next); with a
-    multi-device mesh it gathers each launch's sharded output to the
-    host (the cost host offload implies).
+    compute and d2h transfer overlap (≤ 2 chunk outputs live on the
+    device). ``offload=None`` decides automatically after dispatching the
+    first chunk (from its aval sizes, no sync): offload iff the
+    accumulated *per-device* bytes ``n_chunks × chunk_bytes /
+    mesh_paths_size`` exceed :func:`offload_auto_bytes` of the first mesh
+    device (the default device without a mesh) — device memory is a
+    per-device resource, so a mesh that shards the paths axis raises the
+    on-device ceiling proportionally. ``offload=True`` always offloads,
+    including a single un-chunked launch (frees device memory for
+    whatever runs next); with a multi-device mesh it gathers each
+    launch's sharded output to the host (the cost host offload implies).
 
-    Very large single programs can exceed compiler limits long before HBM
-    does (measured: K=8000 trace buffers are 3.9 GB of 16 GB yet the
-    compile fails server-side, ``benchmarks/PATHS_SCALING_r04.jsonl``).
     Because every path's randomness comes from ``fold_in(key, path_id)``
     — keys are computed *before* the executor sees them — chunking the
     path axis changes no sampled randomness and no algorithmic decision.
     A fixed ``cap`` is fully deterministic (one compiled program, one
     launch order). Results across *different* caps (or vs the unchunked
-    program) agree in exact arithmetic but may differ in the last few
-    ulps: XLA emits different vectorization for different batch sizes
-    (measured ≤ 3e-6 on f32 d=5 trajectories, CPU) — the same rounding
-    caveat the retry rounds' compacted batches already carry.
+    program) agree in exact arithmetic but not in rounding: XLA emits
+    different code for different batch sizes (measured ≤ 3e-6 on f32 d=5
+    trajectories on the CPU; on a GPU whole trajectories can diverge) —
+    the same caveat the retry rounds' compacted batches already carry.
 
     ``cap`` is rounded DOWN to a mesh-divisible lane count (never below
     one lane per device) so each launch still rides the full mesh. Lanes
@@ -191,15 +195,18 @@ def chunk_launches(
     if cap is None:
         if offload is True:
             # explicit offload with no chunking: still move the single
-            # launch's output to host (frees HBM for whatever runs next)
+            # launch's output to host (frees device memory for whatever
+            # runs next)
             return lambda *a: offload_tree(executor(*a))
         return executor
     if cap <= 0:
         raise ValueError(f"max_paths_per_launch must be positive; got {cap}")
     size = 1
+    first_device = jax.devices()[0]
     if mesh is not None:
         size = dict(mesh.shape).get(PATHS_AXIS, mesh.devices.size)
         cap = max((cap // size) * size, size)
+        first_device = mesh.devices.flat[0]
 
     def run(keys, x0s, target, config):
         K = keys.shape[0]
@@ -259,14 +266,15 @@ def chunk_launches(
             if off is None:
                 # auto rule, decided once from the first chunk's CONCRETE
                 # output avals (known at dispatch, no sync — the executor
-                # may slim). HBM is a per-device resource: a mesh sharding
-                # the paths axis over `size` devices accumulates 1/size of
-                # the bytes per device.
+                # may slim). Device memory is a per-device resource: a mesh
+                # sharding the paths axis over `size` devices accumulates
+                # 1/size of the bytes per device.
                 chunk_bytes = sum(
                     leaf.size * leaf.dtype.itemsize
                     for leaf in jax.tree_util.tree_leaves(out)
                 )
-                off = chunk_bytes * n_chunks > OFFLOAD_AUTO_BYTES * size
+                limit = offload_auto_bytes(first_device)
+                off = limit is not None and chunk_bytes * n_chunks > limit * size
             if pending is not None:
                 store(c - 1, pending)
             pending = out

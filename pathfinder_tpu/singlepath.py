@@ -2,7 +2,7 @@
 
 Parity target: ``src/singlepath.jl``. The orchestration (optimize → fit →
 ELBO-argmax → draws, with a bounded retry loop) matches the reference; the
-execution model is TPU-native: one jitted fixed-shape core per
+execution model is one jitted fixed-shape core per
 (target, configuration), retried from the host only when a path fails
 (failures are rare and data-dependent — exactly the split SURVEY §7
 prescribes). All randomness comes from a single ``jax.random`` key, with
@@ -74,10 +74,10 @@ class PathfinderConfig(NamedTuple):
     c1: Optional[float] = None
     c2: float = 0.9
     fail_on_nonfinite: bool = True
-    elbo_chunk: int = 16  # candidates per ELBO chunk (memory bound; chunks
-    # past the trajectory end are skipped, so smaller is faster when
-    # maxiters >> trajectory length — measured 83->63 ms at the headline
-    # bench going 64->8)
+    elbo_chunk: int = 16  # candidates per ELBO chunk (bounds live memory
+    # to O(chunk·d·m); chunks past the trajectory end are skipped, so a
+    # smaller chunk wastes less work when maxiters >> trajectory length.
+    # bench.py's headline passes 8 explicitly)
     # trajectory optimizer (the reference accepts any Optimization.jl
     # optimizer and tests BFGS/ConjugateGradient/NLopt,
     # src/singlepath.jl:120-123, test/optimize.jl:104-135). "lbfgs"
@@ -91,8 +91,6 @@ class PathfinderConfig(NamedTuple):
     # object across calls for jit-cache stability) — the fit/ELBO
     # stages consume only the emitted trace, so any optimizer that
     # records a trajectory plugs in.
-    # An eval-driven fused L-BFGS alternative was built, benchmarked at
-    # ≤4% gain, and removed in round 2; see NOTES.md
     optimizer: Any = "lbfgs"
     # line search: "hager_zhang" (approximate Wolfe + secant², matching the
     # reference default LineSearches.HagerZhang, src/Pathfinder.jl:25-35),
@@ -105,9 +103,9 @@ class PathfinderConfig(NamedTuple):
 
 def validate_dtype(dtype) -> None:
     """Shared driver-input dtype check: floating only, and warn below 32
-    bits — measured on TPU v5e (d=1000, 100 paths): bf16 state makes the
-    curvature pairs s=x_{l+1}-x_l cancel to noise — 0/100 paths succeed
-    vs 100/100 in f32. Compute stays f32-dominant anyway."""
+    bits: with 8 mantissa bits the curvature pairs s=x_{l+1}-x_l of a
+    converging trajectory cancel to noise, so the inverse-Hessian updates
+    are rejected and the fits are meaningless."""
     if not jnp.issubdtype(jnp.dtype(dtype), jnp.floating):
         raise ValueError(
             f"dtype must be a floating type; got {jnp.dtype(dtype).name}"
@@ -316,10 +314,9 @@ class PathfinderResult:
             lambda leaf: leaf[1:], self.fit_distributions
         )
         L = self.config.maxiters
-        # chunked like the core's ELBO loop: ONE wide vmap over all
-        # candidates with the user logp fused in miscompiles on TPU at
-        # d=1000 (non-finite draws; NOTES.md round-3 fusion pathology)
-        # and would materialize every per-candidate draw matrix at once
+        # chunked like the core's ELBO loop: one wide vmap over all
+        # candidates would materialize every per-candidate draw matrix
+        # at once
         C = min(self.config.elbo_chunk, L)
         pad = (-L) % C
         idx = jnp.concatenate([jnp.arange(L), jnp.zeros((pad,), jnp.int32)])

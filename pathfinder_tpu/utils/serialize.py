@@ -245,13 +245,12 @@ def _check_root(root, result, what: str):
 def save_result_orbax(path: str, result) -> None:
     """Save a result as an orbax/TensorStore checkpoint DIRECTORY.
 
-    The TPU-native sibling of :func:`save_result` (same meta schema, same
+    The device-array sibling of :func:`save_result` (same meta schema, same
     :func:`load-time <load_result>` re-binding semantics): device arrays —
     including arrays **sharded over a mesh** — are written by orbax without
     a host gather, so a multipath result whose draws live distributed
-    across chips checkpoints without pulling the pool through the host
-    (at d=10⁶ the draw matrix alone is 400 MB/path-pool; see
-    ``benchmarks/BIG_D_r04.jsonl`` host-fetch decomposition). Requires
+    across devices checkpoints without pulling the pool through the host
+    (at d=10⁶ the draw matrix alone is 400 MB/path-pool). Requires
     ``orbax-checkpoint``; ``path`` must not already exist.
     """
     import orbax.checkpoint as ocp

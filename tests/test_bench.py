@@ -32,7 +32,7 @@ def test_run_bench_smoke_with_oracle(bench_module):
         "khat_oracle_moment", "n_success", "logp_grad_evals",
         "frac_paths_capped", "moment_err_mean_sd_units",
         "moment_err_mean_oracle_moment",
-        # seed-spread columns (VERDICT r03 task 3)
+        # seed-spread columns
         "khat_range", "khat_verdict", "khat_verdict_stable",
         "moment_err_mean_sd_units_range", "logp_grad_evals_range",
         # the documented remedy (optimizer="cg") measured through the
@@ -40,7 +40,7 @@ def test_run_bench_smoke_with_oracle(bench_module):
         "khat_cg", "khat_cg_verdict", "elapsed_cg_s",
         "moment_err_mean_sd_units_cg",
         # the strongest remedy chain: cg + laplace_resample("diag")
-        # inside one jitted program (LAPLACE_COV_r04)
+        # inside one jitted program
         "khat_cg_laplace", "khat_cg_laplace_verdict",
         "elapsed_cg_laplace_s", "moment_err_mean_sd_units_cg_laplace",
     ):
@@ -59,7 +59,7 @@ def test_run_bench_smoke_with_oracle(bench_module):
 
 def test_quality_spread_semantics(bench_module):
     """Median + range aggregation, NaN accounting, and verdict-boundary
-    stability flags (VERDICT r03 task 3)."""
+    stability flags."""
     qs = bench_module._quality_spread
 
     out = qs([{"khat": 0.95, "me": 1.0}, {"khat": 1.1, "me": 2.0},

@@ -1,6 +1,6 @@
 """f32 vs f64 whole-pipeline consistency.
 
-The TPU default is float32; tests otherwise validate against f64 ground
+The default dtype is float32; tests otherwise validate against f64 ground
 truth op-by-op. This checks the END-TO-END contract (SURVEY §7 hard-part 3):
 the f32 pipeline must land on the same fit, within single-precision
 tolerances, as the f64 pipeline on a well-conditioned target.

@@ -108,7 +108,7 @@ def test_to_blackjax_real():
 
 def test_to_blackjax_contract_with_mock(monkeypatch):
     """Exercise ``to_blackjax`` against a mock of blackjax's
-    ``mcmc.metrics.Metric`` container (VERDICT r02 task 3: blackjax cannot
+    ``mcmc.metrics.Metric`` container (blackjax cannot
     be installed here — zero egress). Pins (a) the Metric NamedTuple layout
     ``(sample_momentum, kinetic_energy, check_turning)``, (b) momentum
     covariance = M = W⁻¹, (c) kinetic energy vs dense, (d) the generalized

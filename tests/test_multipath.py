@@ -165,9 +165,9 @@ def test_mesh_padding_non_divisible():
 
 
 def test_pad_paths_alignment_rule():
-    """Large K pads to a multiple of 256 (the measured XLA batch-size
-    cliff, PATHS_CLIFF2_r05); small K is never padded; mesh divisibility
-    composes; align=False opts out."""
+    """Large K pads to a multiple of 256 (nearby path counts share one
+    batch width); small K is never padded; mesh divisibility composes;
+    align=False opts out."""
     from pathfinder_tpu.parallel.sharding import pad_paths
 
     mesh4 = paths_mesh(jax.devices()[:4])
@@ -293,7 +293,7 @@ def test_optimizer_auto_selects_by_khat():
 def test_optimizer_auto_early_exit():
     """A first candidate at k̂ < auto_khat_early_exit (default 0.7, the
     "ok" verdict boundary) ends the competition without running later
-    candidates (VERDICT r03 task 4: auto ≈ one run on easy targets);
+    candidates (auto ≈ one run on easy targets);
     auto_khat_early_exit=None restores the exhaustive competition."""
     from pathfinder_tpu.ops.lbfgs import minimize_lbfgs_trace
 
@@ -506,8 +506,8 @@ def test_mixture_denominator_single_component_equals_component():
 def test_mixture_denominator_improves_overlapping_fits():
     """When components overlap, the pooled draws are mixture-distributed,
     so mixture-denominator ratios have lower variance — measured as
-    higher importance-weight ESS (and no worse khat). Measured on TPU v5e
-    (32-path logreg d=25): khat 0.30 -> 0.02, ESS 468 -> 727."""
+    higher importance-weight ESS (and no worse khat). Measured on the
+    32-path logreg d=25: khat 0.30 -> 0.02, ESS 468 -> 727."""
     target = CorrelatedGaussian(12, seed=2)
     kw = dict(key=jax.random.key(3), nruns=8, maxiters=80)
     r_comp = multipathfinder(target, 400, importance_denominator="component", **kw)
@@ -645,8 +645,8 @@ def test_integer_init_and_dtype_validation():
 
 
 class TestLaplaceResample:
-    """Post-hoc Laplace covariance correction (beyond reference; measured
-    motivation in ``benchmarks/LAPLACE_COV_r04.jsonl``)."""
+    """Post-hoc Laplace covariance correction (beyond reference; the
+    measured remedy at the d=1000 bench target)."""
 
     @pytest.fixture(scope="class")
     def result(self):
@@ -819,8 +819,8 @@ def test_laplace_covariances_diag_fallback_and_saddle_free():
 def test_laplace_resample_transform_aware():
     """The correction must work on a transform-aware (BayesModel) result:
     Hessians of the LINKED density at unconstrained means, constrained
-    draws rebuilt (NOTES lesson: every result-consuming entry point gets
-    a transform-aware test)."""
+    draws rebuilt (every result-consuming entry point gets a
+    transform-aware test)."""
     from pathfinder_tpu.models.bayes import BayesModel, HalfNormal, Normal
     from pathfinder_tpu.multipath import laplace_resample
 
@@ -907,7 +907,7 @@ class TestBadKhatHint:
     """A bad/very-bad Pareto-k̂ verdict surfaces a one-line actionable
     remedy hint in the warning stream and the repr (beyond reference —
     the reference only prints the verdict, ``src/multipath.jl:54-63``;
-    the remedies are this repo's measured ones, VERDICT r04 task 2)."""
+    the remedies are this repo's measured ones)."""
 
     @staticmethod
     def _fake_psis(khat, n):
@@ -974,8 +974,8 @@ class TestBadKhatHint:
 
 class TestChunkedLaunches:
     """``max_paths_per_launch`` splits large path batches into sequential
-    launches of one fixed-shape program (VERDICT r04 task 6 — compiler
-    limits bite long before HBM at large K). Keys depend only on the path
+    launches of one fixed-shape program (bounding the lanes of any one
+    compiled program). Keys depend only on the path
     id, so no randomness or decision changes; a fixed cap is fully
     deterministic, and chunked-vs-unchunked agree up to XLA's
     per-batch-size codegen rounding (measured ≤ 3e-6 on this target)."""
@@ -1051,9 +1051,8 @@ class TestChunkedLaunches:
 
     def test_auto_cap_past_single_program_ceiling(self, monkeypatch):
         """``max_paths_per_launch=None`` resolves transparently: past the
-        measured single-program ceiling (sharding.SINGLE_PROGRAM_MAX_K)
-        the driver chunks at sharding.DEFAULT_LAUNCH_CAP on its own
-        (VERDICT r04 task 6 "transparently chunks"), records the
+        single-program ceiling (sharding.SINGLE_PROGRAM_MAX_K) the
+        driver chunks at sharding.DEFAULT_LAUNCH_CAP on its own, records the
         resolved cap on the result (so resample/laplace PSIS recomputes
         stay block-wise), and matches an explicit-cap run bit-for-bit."""
         from pathfinder_tpu.parallel import sharding
@@ -1217,6 +1216,14 @@ class TestOffloadLaunches:
         np.testing.assert_array_equal(
             np.asarray(res_big.draws), np.asarray(res_small.draws)
         )
+
+    def test_auto_never_offloads_without_a_memory_limit(self):
+        """The CPU backend reports no memory limit, so the default
+        (``offload_launches=None``) keeps chunked outputs on the device."""
+        res, _ = run_multi(
+            key=8, nruns=10, ndraws=100, max_paths_per_launch=4
+        )
+        assert isinstance(res.states.draws, jax.Array)
 
     def test_retry_merge_on_host(self):
         """Retry rounds merge compacted device batches into the

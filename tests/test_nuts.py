@@ -363,7 +363,7 @@ def test_diag_metric_closed_form_matches_factorized():
 
 
 # ---------------------------------------------------------------------------
-# Truth-anchored referee validation (VERDICT r02 task 4): the in-repo NUTS
+# Truth-anchored referee validation: the in-repo NUTS
 # vs machine-precision ground truth, breaking the end-to-end circularity
 # (previously NUTS was only checked on Gaussian/banana shapes and the
 # end-to-end test used NUTS warm-started by the fit under test). Methodology

@@ -374,7 +374,7 @@ def test_optimizer_registry_rejects_non_callable():
 
 
 def test_newton_large_dim_warns():
-    """VERDICT r03 #7: the derived-Hessian Newton path warns at runtime
+    """The derived-Hessian Newton path warns at runtime
     when it will materialize a (d, d) Hessian at large d."""
     from pathfinder_tpu.models.protocol import as_log_density
     from pathfinder_tpu.ops.optimizers import resolve_optimizer

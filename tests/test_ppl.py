@@ -496,7 +496,7 @@ def test_from_numpyro_plumbing_with_mock(monkeypatch):
 
 def _install_fake_numpyro_full(monkeypatch):
     """Strict stand-in for ``initialize_model`` covering the FULL contract
-    the adapter depends on (VERDICT r02 task 3 — NumPyro cannot be
+    the adapter depends on (NumPyro cannot be
     installed in this zero-egress environment, so the mock is the contract
     documentation):
 

@@ -182,7 +182,7 @@ def test_unregistered_root_raises_at_save_time(tmp_path):
 
 
 def test_orbax_roundtrip_matches_npz(tmp_path):
-    """The orbax checkpoint path (TPU-native sibling of save_result)
+    """The orbax checkpoint path (device-array sibling of save_result)
     round-trips a multipath result identically to the npz path, including
     post-hoc resample on the loaded result."""
     from pathfinder_tpu.utils.serialize import (

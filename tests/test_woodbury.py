@@ -3,7 +3,7 @@
 Ports the numerical contract of reference ``test/woodbury.jl:117-404``: every
 operator is compared against explicit dense materialization ``A + B D Bᵀ``
 over {float32, float64} × {diag, dense A} × {diag-like, dense D} × n ∈ {5, 10},
-m = 8, plus masked-column and empty-history (m = 0) cases that the TPU build
+m = 8, plus masked-column and empty-history (m = 0) cases that this build
 adds for fixed-shape batching.
 """
 
